@@ -19,8 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import sep2023_tpu as st
-from sep2023_tpu import das, models, optimize, parallel
-from sep2023_tpu.config import Survey
+from sep2023_tpu import das, models, optimize
 
 
 def main():
@@ -88,30 +87,12 @@ def main():
         r = obs_g1 - das.apply_gauge(syn1[3], A32)
         return 0.5 * jnp.sum(r * r)
 
-    # the fused Pallas engine handles this curved-fiber weighted acquisition
-    # as a K-layer fiber survey (pallas_engine.FiberSurvey); on CPU the
-    # interpret-mode kernel is slower than XLA, so fall back there
-    use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        survey = Survey(src_z=np.full(len(src_x), 2), src_x=src_x,
-                        rec_z=rec_z, rec_x=rec_x)
-        loss_d = parallel.make_pallas_misfit(cfg, survey,
-                                             misfit_fn=gauge_l2, das_w=das_w)
-        w1 = jnp.ones((len(src_x),), jnp.float32)
-        print("engine: fused Pallas (fiber survey)")
-
-        def loss(params, stf_a, obs_gauge):
-            lam, mu, rho = to_lame(params["vp"])
-            return loss_d(lam, mu, rho, stf_a, obs_gauge, w1)
-    else:
-        print("engine: XLA")
-
-        def loss(params, stf_a, obs_gauge):
-            lam, mu, rho = to_lame(params["vp"])
-            syn = jax.vmap(lambda si, gi: st.propagate(cfg, lam, mu, rho,
-                                                       si, gi))(stf_a, geoms)
-            per = jax.vmap(gauge_l2)(obs_gauge, syn)
-            return jnp.sum(per)
+    def loss(params, stf_a, obs_gauge):
+        lam, mu, rho = to_lame(params["vp"])
+        syn = jax.vmap(lambda si, gi: st.propagate(cfg, lam, mu, rho,
+                                                   si, gi))(stf_a, geoms)
+        per = jax.vmap(gauge_l2)(obs_gauge, syn)
+        return jnp.sum(per)
 
     obj = optimize.ScipyObjective(loss, {"vp": vp_i}, aux=(stf_all, obs_g))
     f0 = obj.fun(obj.x0)

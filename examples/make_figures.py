@@ -189,7 +189,7 @@ def plot_overthrust(npz_path, outdir):
     for ax, (arr, title) in zip(axes, [
             (vp_t, "true Vp + spline DAS cable"),
             (vp_i, "initial Vp (smoothed)"),
-            (vp_o, "inverted Vp (10 L-BFGS-B iters, TPU)")]):
+            (vp_o, "inverted Vp (10 L-BFGS-B iters)")]):
         im = ax.imshow(arr, cmap="viridis", vmin=vmin, vmax=vmax)
         ax.set_title(title)
         ax.set_xlabel("x (cells)")
@@ -203,7 +203,7 @@ def plot_overthrust(npz_path, outdir):
 
 
 def plot_marmousi(npz_path, outdir):
-    """Marmousi-scale streamed-engine twin experiment
+    """Marmousi-scale twin experiment
     (examples/marmousi_scale.py artifact): true / initial / inverted Vp,
     the true vs recovered anomaly perturbations, and the per-iteration
     IN-ANOMALY model error — the recovery metric."""
@@ -218,8 +218,7 @@ def plot_marmousi(npz_path, outdir):
             (vp_t, "true Vp: overthrust + 3 Gaussian anomalies "
                    "(750x2000, 7.5x20 km)"),
             (vp_i, "initial Vp (smoothed background, no anomalies)"),
-            (vp_o, f"inverted Vp (streamed engine, {nit} L-BFGS-B "
-                   "iters, TPU)")]):
+            (vp_o, f"inverted Vp ({nit} L-BFGS-B iters)")]):
         ax = fig.add_subplot(gs[r, :])
         im = ax.imshow(arr, cmap="viridis", vmin=vmin, vmax=vmax,
                        aspect="auto")

@@ -1,11 +1,11 @@
-"""Marmousi-scale twin-experiment FWI on the streamed Pallas engine.
+"""Marmousi-scale twin-experiment FWI on the XLA engine.
 
 A 750x2000-cell (7.5 km x 20 km at dz=dx=10 m) overthrust-style model
-with three Gaussian vp anomalies — 814x2064 padded, far past the fused
-engine's VMEM range — inverted end-to-end on one chip: observed data from
-the true model, L-BFGS-B from the smoothed anomaly-free background,
-gradients through the grid-size-independent streamed backward
-(ops/pallas_stream.py).
+with three Gaussian vp anomalies — 814x2064 padded — inverted end-to-end on
+one GPU: observed data from the true model, L-BFGS-B from the smoothed
+anomaly-free background, gradients through the boundary-saving adjoint
+(propagator.propagate) with shots chunked so the strips fit device
+memory.
 
 This is the reference's twin-experiment design (anomalies on a known
 background, Main-001-FWI-Anomaly-Vp-Vs-Den.py:137-154) at Marmousi scale:
@@ -33,15 +33,13 @@ import numpy as np
 import sep2023_tpu as st
 from sep2023_tpu import models, optimize, parallel
 from sep2023_tpu.config import Survey
-from sep2023_tpu.ops import pallas_engine as pe
-from sep2023_tpu.ops import pallas_stream as ps
 
 
 def main(outdir="scratch/marmousi_scale", n_iters=30, nz=750, nx=2000,
          nt=2001, n_shots=24, npml=32, smooth_cells=None, shot_chunk=2,
          f0=6.0):
-    """Defaults are the Marmousi-scale TPU run; the smaller overrides let
-    the same machinery smoke-test on CPU (interpret mode).  Returns the
+    """Defaults are the Marmousi-scale GPU run; the smaller overrides let
+    the same machinery smoke-test on CPU.  Returns the
     metrics dict it prints (misfit + IN-ANOMALY model error, both of
     which must IMPROVE for the demo to count as a recovery; the
     illuminated-zone and whole-model errors are reported alongside)."""
@@ -54,9 +52,9 @@ def main(outdir="scratch/marmousi_scale", n_iters=30, nz=750, nx=2000,
     # stay within the lambda/2 resolution on their tiny grids
     cfg = st.SimConfig(nz=nz + 2 * npml, nx=nx + 2 * npml, dz=dh, dx=dh,
                        nt=nt, dt=dt, f0=float(f0), npml=npml)
-    print(f"grid {cfg.nz}x{cfg.nx} padded, nt={nt}; "
-          f"fused gradient fits: {pe.grad_vmem_fits(cfg)}; "
-          f"streamed layout {ps._layout(cfg)}", flush=True)
+    print(f"grid {cfg.nz}x{cfg.nx} padded, nt={nt}; boundary strips "
+          f"{parallel.strip_bytes_per_shot(cfg) / 1e9:.2f} GB/shot",
+          flush=True)
 
     vp_bg = models.overthrust_vp(nz, nx, v_top=2600.0, v_step=300.0)
     # truth = background + smooth Gaussian blobs (the recoverable target);
@@ -109,27 +107,24 @@ def main(outdir="scratch/marmousi_scale", n_iters=30, nz=750, nx=2000,
     print("generating observed data (production forward builder) ...",
           flush=True)
     t0 = time.time()
-    gen = ps.tpu_jit(parallel.make_forward(cfg, survey, use_pallas=True,
-                                           shot_chunk=shot_chunk))
+    gen = jax.jit(parallel.make_forward(cfg, survey, shot_chunk=shot_chunk))
     lam_t, mu_t = to_lame(pad(vp_t))
     obs = jax.block_until_ready(gen(lam_t, mu_t, rho, stf))
     print(f"  {len(src_x)} shots in {time.time()-t0:.1f}s (incl. compile)",
           flush=True)
 
-    # shot_chunk bounds the streamed boundary-strip residents (~1.9 GB
-    # per in-flight shot at full-scale nt) via the custom-vjp gradient
-    # accumulator (parallel._chunked_sum; auto_shot_chunk picks 3 for the
-    # full shape) — the production path; unchunked 24-shot residuals
-    # would exceed HBM
-    data_loss = parallel.make_pallas_misfit(cfg, survey,
-                                            shot_chunk=shot_chunk)
+    # shot_chunk bounds the boundary-strip residuals (~1.15 GB per
+    # in-flight shot at full-scale nt) via the custom-vjp gradient
+    # accumulator (parallel._chunked_sum) — the production path
+    geoms = parallel.survey_to_geoms(survey, npml)
+    data_loss = parallel.make_local_misfit(cfg, shot_chunk=shot_chunk)
 
     def loss(params, stf_, obs_):
         vp_pad = jnp.pad(jnp.asarray(params["vp"], jnp.float32), npml,
                          mode="edge")
         lam, mu = to_lame(vp_pad)
         rr = jnp.full(cfg.grid.shape, rho_c, jnp.float32)
-        return data_loss(lam, mu, rr, stf_, obs_, w)
+        return data_loss(lam, mu, rr, stf_, geoms, obs_, w)
 
     obj = optimize.ScipyObjective(loss, {"vp": vp_0}, aux=(stf, obs))
     err_hist = [anom_err(vp_0)]

@@ -15,7 +15,7 @@ coherent structure (Ulyanov et al.'s deep image prior), which is the
 standard NN-reparameterized-FWI construction.
 
 Run:  python examples/neural_reparam_fwi.py [outdir] [n_steps]
-(defaults run the reference-scale grid on TPU; tests drive `invert_nn`
+(defaults run the reference-scale grid on a GPU; tests drive `invert_nn`
 on a tiny CPU grid).
 """
 import os
@@ -65,31 +65,24 @@ def make_decoder(nz: int, nx: int, width: int = 16, scale: float = 300.0):
 
 
 def invert_nn(cfg, survey, vp_bg, rho_const, stf, obs, n_steps=60,
-              lr=2e-3, width=16, use_pallas=False):
+              lr=2e-3, width=16):
     """Train the decoder weights against the waveform misfit; returns
     (vp_out, losses).  vp_bg: smooth background (PHYSICAL grid); the CNN
     produces the perturbation.  The loss builder is the production one
-    (fused Pallas or XLA), so the NN composes with every engine."""
+    (parallel.make_local_misfit)."""
     import optax
 
     nz, nx = vp_bg.shape
     params0, apply = make_decoder(nz, nx, width=width)
     geoms = parallel.survey_to_geoms(survey, cfg.npml)
     w = jnp.ones((survey.n_shots,), jnp.float32)
-    if use_pallas:
-        data_loss = parallel.make_pallas_misfit(cfg, survey)
-        d_args = lambda lam, mu, rho, stf_, obs_: (lam, mu, rho, stf_,
-                                                   obs_, w)
-    else:
-        data_loss = parallel.make_local_misfit(cfg)
-        d_args = lambda lam, mu, rho, stf_, obs_: (lam, mu, rho, stf_,
-                                                   geoms, obs_, w)
+    data_loss = parallel.make_local_misfit(cfg)
     vp_bg = jnp.asarray(vp_bg, jnp.float32)
 
     # observed data / wavelets / background are jit ARGUMENTS, not closure
-    # captures (closed-over device arrays become compiled-in constants —
-    # duplicated in HBM and shipped with every remote compile); rho is
-    # built from the scalar inside the trace (a free broadcast)
+    # captures (closed-over device arrays become compiled-in constants,
+    # duplicated in device memory); rho is built from the scalar inside
+    # the trace (a free broadcast)
     def loss_fn(params, vp_bg_, stf_, obs_):
         rho = jnp.full(cfg.grid.shape, rho_const, jnp.float32)
         vp = vp_bg_ + apply(params)
@@ -97,14 +90,12 @@ def invert_nn(cfg, survey, vp_bg, rho_const, stf, obs, n_steps=60,
         vs_pad = vp_pad / jnp.sqrt(3.0)
         lam = (vp_pad ** 2 - 2 * vs_pad ** 2) * rho
         mu = vs_pad ** 2 * rho
-        return data_loss(*d_args(lam, mu, rho, stf_, obs_))
+        return data_loss(lam, mu, rho, stf_, geoms, obs_, w)
 
     opt = optax.adam(lr)
     state = opt.init(params0)
 
-    from sep2023_tpu.ops.pallas_stream import tpu_jit
-
-    @tpu_jit
+    @jax.jit
     def step(params, state, vp_bg_, stf_, obs_):
         val, g = jax.value_and_grad(loss_fn)(params, vp_bg_, stf_, obs_)
         upd, state = opt.update(g, state)
@@ -133,7 +124,7 @@ def main(outdir="scratch/neural_reparam", n_steps=80):
         (len(src_x), cfg.nt))
     rho = 2500.0
 
-    gen = parallel.make_forward(cfg, survey, use_pallas=True)
+    gen = jax.jit(parallel.make_forward(cfg, survey))
     vp_pad = jnp.asarray(st.medium.pad_model_np(vp_t, npml), jnp.float32)
     vs_pad = vp_pad / jnp.sqrt(3.0)
     rr = jnp.full(cfg.grid.shape, rho, jnp.float32)
@@ -141,7 +132,7 @@ def main(outdir="scratch/neural_reparam", n_steps=80):
               stf)
 
     vp_out, losses = invert_nn(cfg, survey, vp_bg, rho, stf, obs,
-                               n_steps=int(n_steps), use_pallas=True)
+                               n_steps=int(n_steps))
     err0 = np.abs(vp_bg - vp_t).mean()
     err1 = np.abs(vp_out - vp_t).mean()
     np.savez(os.path.join(outdir, "neural_reparam.npz"), vp_true=vp_t,

@@ -5,7 +5,7 @@ Mirrors the reference's second fiber-geometry flow
 laid as a spline through control points draped over a structured
 (overthrust) model, resampled to equal arc length, with Frenet-tangent
 directional sensitivity weights — then inverted end-to-end with the
-directional 'weighted' strain channel on the Pallas fast path.
+directional 'weighted' strain channel.
 
 Run:  python examples/overthrust_das.py [outdir]
 """
@@ -19,14 +19,12 @@ import jax.numpy as jnp
 import numpy as np
 
 import sep2023_tpu as st
-from sep2023_tpu import das, models, optimize
-from sep2023_tpu.ops import misfit as mf
-from sep2023_tpu.ops import pallas_engine as pe
+from sep2023_tpu import das, models, optimize, parallel
 
 
 def main(outdir="scratch/overthrust_das", n_iters=10, nt=501, src_step=10):
     """Defaults are the demo run; smaller nt/n_iters/denser src_step let
-    the suite smoke-test the script on CPU (interpret-mode Pallas).
+    the suite smoke-test the script on CPU.
     Returns the metrics dict it prints."""
     os.makedirs(outdir, exist_ok=True)
     n_iters, nt, src_step = int(n_iters), int(nt), int(src_step)
@@ -55,36 +53,38 @@ def main(outdir="scratch/overthrust_das", n_iters=10, nt=501, src_step=10):
           f"{rec_z.min()}..{rec_z.max()}")
 
     src_x = np.arange(10, nx - 10, src_step)
-    sz = jnp.asarray(np.full(len(src_x), 1) + npml)
-    sx = jnp.asarray(src_x + npml)
-    rxz = jnp.ones((len(src_x),), jnp.float32)
+    S = len(src_x)
     stf = jnp.broadcast_to(
         jnp.asarray(st.ricker(cfg.f0, cfg.nt, cfg.dt), jnp.float32),
-        (len(src_x), cfg.nt))
+        (S, cfg.nt))
+    bcast = lambda a, dt: jnp.broadcast_to(jnp.asarray(a, dt),
+                                           (S, *np.shape(a)))
+    geoms = st.ShotGeom(
+        src_z=jnp.full((S,), 1 + npml, jnp.int32),
+        src_x=jnp.asarray(src_x + npml, jnp.int32),
+        rxz=jnp.ones((S,), jnp.float32),
+        rec_z=bcast(rec_z + npml, jnp.int32),
+        rec_x=bcast(rec_x + npml, jnp.int32),
+        das_w=bcast(das_w, jnp.float32))
+    w = jnp.ones((S,), jnp.float32)
+    data_loss = parallel.make_local_misfit(cfg, channels=("ett",))
 
-    plan = pe.plan_fast_path(cfg, rec_z + npml, rec_x + npml, das_w=das_w)
-    assert plan is not None, "cable does not fit a fast-path plan"
-    print(f"fast path: {type(plan.rs).__name__}, "
-          f"K={pe._n_layers(plan.rs)} layers "
-          f"({pe.plan_engine_name(plan)})")
-
-    def fwd(vp_pad, stf_):
+    def to_lame(vp_pad):
         vs_pad = vp_pad / jnp.sqrt(3.0)
-        lam = (vp_pad ** 2 - 2 * vs_pad ** 2) * rho
-        mu = vs_pad ** 2 * rho
-        return pe.propagate_pallas_plan(plan, lam, mu, rho, stf_, sz, sx,
-                                        rxz)
+        return (vp_pad ** 2 - 2 * vs_pad ** 2) * rho, vs_pad ** 2 * rho
 
     print("generating observed DAS data (true model) ...")
-    obs = jax.jit(fwd)(pad(vp_true), stf)
+    lam_t, mu_t = to_lame(pad(vp_true))
+    obs = jax.jit(jax.vmap(lambda s, g: st.propagate(
+        cfg, lam_t, mu_t, rho, s, g)))(stf, geoms)
 
     # observed data + wavelets threaded as aux arguments (NOT closures:
     # closed-over device arrays become compiled-in constants)
     def loss(params, stf_, obs_):
         vp_pad = jnp.pad(jnp.asarray(params["vp"], jnp.float32), npml,
                          mode="edge")
-        syn = fwd(vp_pad, stf_)
-        return mf.l2_misfit(obs_, syn, channels=("ett",))
+        lam, mu = to_lame(vp_pad)
+        return data_loss(lam, mu, rho, stf_, geoms, obs_, w)
 
     print("inverting vp from the DAS 'ett' channel ...")
     obj = optimize.ScipyObjective(loss, {"vp": vp_init}, aux=(stf, obs))

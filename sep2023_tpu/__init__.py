@@ -1,7 +1,6 @@
-"""sep2023_tpu — a TPU-native elastic wave modeling & DAS full-waveform
-inversion framework (JAX / XLA / Pallas), built from scratch with the
-capabilities of the seisfwi/SEP-2023 reference (TorchFWI-CUDA + Numba CPU
-solver), re-designed TPU-first.
+"""sep2023_tpu — an elastic wave modeling & DAS full-waveform inversion
+framework in JAX / XLA, built from scratch with the capabilities of the
+seisfwi/SEP-2023 reference (TorchFWI-CUDA + Numba CPU solver).
 
 Layers (bottom-up):
   ops.fd / ops.signal / ops.misfit   stencils, filters, objectives
@@ -10,7 +9,7 @@ Layers (bottom-up):
                                      saving custom_vjp adjoint
   das                                gauge-length DAS operator, fiber geometry
   heads                              model parameterizations (7 heads)
-  parallel                           shot sharding over a chip mesh
+  parallel                           shot sharding over a device mesh
   optimize                           L-BFGS-B outer loop + scipy bridge
   analytic                           Aki & Richards solutions (test oracles)
 """

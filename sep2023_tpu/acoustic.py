@@ -2,7 +2,7 @@
 physics mode of the reference (`ac_pressure.cu`, `ac_velocity.cu`, exercised
 by the standalone CLI path `main.cu:180-197`, not the Torch path).
 
-Same TPU-first architecture as the elastic engine (propagator.py): one
+Same architecture as the elastic engine (propagator.py): one
 `lax.scan`, uniform CPML, boundary-saving custom_vjp whose backward pass is
 time-reversed reconstruction + per-step `jax.vjp`.
 

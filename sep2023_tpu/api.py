@@ -119,13 +119,14 @@ class ElasticPropagator:
         vs0 = jnp.asarray(model_init.vs, self.dtype)
         rho0 = jnp.asarray(model_init.rho, self.dtype)
 
-        def f(vp, vs, rho, stf_):
+        # observed data is an argument, not a closure: a closed-over device
+        # array would be compiled into the program as a constant
+        def f(vp, vs, rho, stf_, obs_):
             lam, mu, rr = self._padded(vp, vs, rho)
-            return loss(lam, mu, rr, stf_, geoms, obs, w)
+            return loss(lam, mu, rr, stf_, geoms, obs_, w)
 
-        from sep2023_tpu.ops.pallas_stream import tpu_jit
-        val, grads = tpu_jit(jax.value_and_grad(f, argnums=(0, 1, 2, 3)))(
-            vp0, vs0, rho0, stf)
+        val, grads = jax.jit(jax.value_and_grad(f, argnums=(0, 1, 2, 3)))(
+            vp0, vs0, rho0, stf, obs)
         g_vp, g_vs, g_rho, g_stf = grads
         return {
             "misfit": float(val),

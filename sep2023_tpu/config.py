@@ -1,4 +1,4 @@
-"""Configuration objects for the TPU-native elastic FWI framework.
+"""Configuration objects for the elastic FWI framework.
 
 Replaces the reference's filesystem JSON side-channel (para_file.json /
 survey_file.json parsed by rapidjson in
@@ -25,8 +25,8 @@ class Grid:
     """Padded simulation grid: nz x nx INCLUDES the 2*npml absorbing collar.
 
     The reference additionally pads the bottom with ``nPad`` rows so nz is a
-    multiple of 32 for CUDA tiling (`propagator.py:95`).  The TPU build is
-    nPad-free: XLA/Mosaic handle lane padding; callers that speak the
+    multiple of 32 for CUDA tiling (`propagator.py:95`).  This build is
+    nPad-free: XLA chooses its own tiling; callers that speak the
     reference schema strip nPad at the boundary (see `io.py`).
     """
 

@@ -13,13 +13,13 @@ Port of the recurrence-coefficient construction in the reference
 with N = 8, Rcoef = 8e-4, Kmax = 2 and a model-independent cp_ref = 3000 m/s
 (hard-coded in the reference, `utilities.cu:260`).
 
-TPU-first design note: outside the PML, damp = 0, K = 1, alpha = 0, hence
+Design note: outside the PML, damp = 0, K = 1, alpha = 0, hence
 b = 1 and a = 0, so the memory-variable recursion
     psi <- b psi + a d     ;     d_eff = d / K + psi
 is the identity (psi stays 0).  We therefore apply the CPML update UNIFORMLY
 over the grid — no interior/PML masks or gathers — which is mathematically
 identical to the reference's region-gated kernels (`el_stress.cu:57-64`) and
-maps onto the VPU as pure broadcast arithmetic.
+compiles to pure broadcast arithmetic.
 """
 from __future__ import annotations
 

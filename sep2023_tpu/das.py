@@ -276,10 +276,13 @@ def cable_to_receivers(cable: np.ndarray, dx: float, dz: float,
 def apply_gauge(ett_points, A):
     """Gauge-average per-point fiber strains: ett_points (..., npts_total,
     nt) x A (nchan, npts_total) -> (..., nchan, nt).  Constant linear map —
-    composes differentiably with any misfit."""
+    composes differentiably with any misfit.  HIGHEST precision keeps a
+    float32 contraction out of reduced-precision (TF32) tensor-core
+    arithmetic."""
     import jax.numpy as jnp
+    from jax import lax
     return jnp.einsum("cp,...pt->...ct", jnp.asarray(A, ett_points.dtype),
-                      ett_points)
+                      ett_points, precision=lax.Precision.HIGHEST)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """Elastic medium containers and staggered-grid material averaging.
 
-Re-expresses (TPU-first, vectorized) what the reference does in:
+Re-expresses (vectorized) what the reference does in:
   - `Model.cu:85-87` + `utilities.cu:109-152` (velInit / aveMuInit / aveBycInit)
   - `fwi_utils.py:11-44` (model padding)
-All material fields live on the PADDED (nz, nx) grid; z is axis 0 (sublanes),
-x is axis 1 (lanes).
+All material fields live on the PADDED (nz, nx) grid; z is axis 0, x is
+axis 1 (contiguous).
 """
 from __future__ import annotations
 

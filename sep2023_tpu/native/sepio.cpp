@@ -1,6 +1,6 @@
 // sepio — multithreaded seismogram binary I/O for sep2023_tpu.
 //
-// TPU-native counterpart of the reference's native data plane: the CUDA
+// Counterpart of the reference's native data plane: the CUDA
 // build streams per-shot float32 binaries (Shot_{pr,vx,vz,ett}<id>.bin)
 // between disk and pinned host buffers inside its C++ layer
 // (fileBinLoad/fileBinWrite, utilities.cu:10-31; pinned cubes,

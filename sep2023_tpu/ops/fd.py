@@ -8,11 +8,11 @@ The four shifted first-derivative stencils of the velocity-stress scheme
   dplus_*(f)[i]  = c1 (f[i+1] - f[i]  ) - c2 (f[i+2] - f[i-1])
 
 Implemented as zero-padded slice arithmetic: XLA fuses these into the
-surrounding elementwise update, so each time step compiles to a handful of
-fused VPU loops over contiguous (sublane x lane) tiles — the TPU analogue of
-the reference's fused CUDA stencil kernels.  The 2-cell halo rows/cols produce
-garbage values that callers mask out (the reference equivalently restricts
-updates to gidz/gidx in [2, n-3]).
+surrounding elementwise update, so each time step compiles to a handful
+of fused elementwise loops over the (nz, nx) planes — XLA's counterpart of
+the reference's hand-written CUDA stencil kernels.  The 2-cell halo
+rows/cols produce garbage values that callers mask out (the reference
+equivalently restricts updates to gidz/gidx in [2, n-3]).
 
 Division by the grid spacing happens at the call site.
 """

@@ -62,7 +62,7 @@ def make_preprocessed_l2(channels=("ett",), dt=None, filter_corners=None,
     band-pass amplitude response as a runtime ARRAY
     (signal.bandpass_amplitude) instead of the static `filter_corners`
     closure.  Multiscale stages then share ONE compiled executable, differing
-    only in the bph value (30 s - 10 min cold TPU compile per stage saved).
+    only in the bph value (one cold compile per stage saved).
     """
     from sep2023_tpu.ops import signal as sg
 

@@ -1,7 +1,7 @@
 """Signal processing on seismogram arrays: trapezoid band-pass filtering,
 taper windows, and Wiener spectral source estimation.
 
-TPU-native equivalents of the reference's cuFFT-based utilities:
+JAX equivalents of the reference's cuFFT-based utilities:
   - sin^2/cos^2 trapezoid band-pass  `cuda_bp_filter1d` (utilities.cu:733-763)
   - taper window                     `cuda_window`     (utilities.cu:790-884)
   - spectral source update           `source_update`   (utilities.cu:1170-1325)

@@ -1,5 +1,5 @@
-"""TPU-native 2D elastic velocity-stress propagator with CPML and a
-boundary-saving adjoint (`jax.custom_vjp`).
+"""2D elastic velocity-stress propagator with CPML and a boundary-saving
+adjoint (`jax.custom_vjp`).
 
 This is the from-scratch JAX/XLA re-design of the reference CUDA engine:
 
@@ -12,9 +12,9 @@ This is the from-scratch JAX/XLA re-design of the reference CUDA engine:
 
 Architecture (deliberately NOT a translation):
 
-  * One `lax.scan` over time; fields are (nz, nx) arrays (z = sublanes,
-    x = lanes).  Derivatives are fused slice arithmetic (ops/fd.py) that XLA
-    lowers to a few fused VPU loops per step.
+  * One `lax.scan` over time; fields are (nz, nx) arrays.  Derivatives are
+    fused slice arithmetic (ops/fd.py) that XLA lowers to a few fused
+    elementwise loops per step.
   * CPML recursions applied uniformly (profiles are the identity outside the
     PML — see cpml.py), so there is no divergent control flow anywhere.
   * The backward pass is a single reverse `lax.scan` whose body
@@ -285,9 +285,9 @@ def _strip_bounds(cfg: SimConfig):
 
 
 def _extract_strips(a, cfg: SimConfig) -> Strips:
-    """Strips are stored FLATTENED (1-D): a 2-D (nz, 5) slab would be
-    lane-padded 5 -> 128 in TPU HBM layout (a 25x blowup over nt steps);
-    1-D vectors pad only to the next 128 multiple (~7% overhead)."""
+    """Strips are stored FLATTENED (1-D), so a thin (nz, 5) slab never
+    carries a padded minor dimension through the nt-step residual stack
+    (`parallel.strip_bytes_per_shot` charges exactly these bytes)."""
     L, z0, z1, x0, x1 = _strip_bounds(cfg)
     return Strips(top=a[z0:z0 + L, :].reshape(-1),
                   bot=a[z1:z1 + L, :].reshape(-1),
@@ -443,7 +443,7 @@ propagate.defvjp(_propagate_fwd, _propagate_bwd)
 def propagate_shots(cfg: SimConfig, lam, mu, rho, stf, geoms: ShotGeom):
     """vmap over the shot axis: stf (S, nt), geoms fields lead with S.
     Replaces the OpenMP shot loop of `Torch_Fwi.cpp:71-95`; combine with
-    shard_map (parallel.py) to span a chip mesh."""
+    shard_map (parallel.py) to span a device mesh."""
     fn = jax.vmap(lambda st, g: propagate(cfg, lam, mu, rho, st, g))
     return fn(stf, geoms)
 

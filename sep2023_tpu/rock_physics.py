@@ -46,8 +46,8 @@ def vrh(p1, p2, v1, method: str = "VRH"):
 
 def pcs_to_lame_vrh(phi, cc, sw):
     """VRH-bound PCS model (FWI_ops.py:451-508).  Returns (lam, mu, rho) in
-    SI units (the reference divides by 1e6 for its CUDA MEGA convention; the
-    TPU engine runs in SI)."""
+    SI units (the reference divides by 1e6 for its CUDA MEGA convention;
+    this engine runs in SI)."""
     kv = ((1 - phi) * (K_CLAY * cc + K_QUARTZ * (1 - cc))
           + phi * (K_WATER * sw + K_HYDRO * (1 - sw)))
     kr = 1.0 / ((1 - phi) * (cc / K_CLAY + (1 - cc) / K_QUARTZ)

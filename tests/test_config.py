@@ -75,8 +75,7 @@ def test_borehole_column_receivers():
     """Crosswell geometry: receivers down a vertical column with the ezz
     (vertical fiber) DAS channel and an anisotropic source ratio — the
     borehole configuration behind src_rxz (utilities.cu:537) and
-    recording_ezz.  Exercises the general-geometry XLA path (column
-    receivers are outside the Pallas row fast path)."""
+    recording_ezz."""
     import jax
     import jax.numpy as jnp
     cfg = SimConfig(nz=70, nx=80, dz=10.0, dx=10.0, nt=200, dt=0.001,

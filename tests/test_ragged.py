@@ -1,6 +1,6 @@
 """Per-shot ragged receiver spreads (Src_Rec.cu:87-116: nrec / z_rec / x_rec
 parsed per shot): survey JSON round trip, loss equality against per-shot
-single runs, and the Pallas union-spread path."""
+single runs, plain-AD gradients and the sharded path."""
 import json
 
 import jax
@@ -12,6 +12,7 @@ from sep2023_tpu import io as sio
 from sep2023_tpu import parallel
 from sep2023_tpu.config import Survey
 from sep2023_tpu.ops import misfit as mf
+from sep2023_tpu.propagator import propagate_ad
 
 
 def _ragged_survey():
@@ -66,16 +67,14 @@ def _mini_problem():
                        nt=100, dt=0.002, f0=10.0, npml=npml)
     vp = jnp.full(cfg.grid.shape, 3000.0).at[26:32, 30:44].add(220.0)
     med = st.Medium(vp, vp / jnp.sqrt(3.0), jnp.full(cfg.grid.shape, 2500.0))
-    lam = med.lam.astype(jnp.float32)
-    mu = med.mu.astype(jnp.float32)
-    rho = med.rho.astype(jnp.float32)
-    stf = jnp.broadcast_to(
-        jnp.asarray(st.ricker(cfg.f0, cfg.nt, cfg.dt), jnp.float32),
-        (2, cfg.nt))
+    lam, mu, rho = med.lam, med.mu, med.rho
+    stf = jnp.broadcast_to(jnp.asarray(st.ricker(cfg.f0, cfg.nt, cfg.dt)),
+                           (2, cfg.nt))
     return cfg, lam, mu, rho, stf
 
 
-def _per_shot_reference(cfg, lam, mu, rho, stf, survey, obs_full):
+def _per_shot_reference(cfg, lam, mu, rho, stf, survey, obs_full,
+                        propagate=st.propagate):
     """Sum of single-shot losses, each with its OWN (unpadded) spread and
     the same per-trace-conditioned misfit the ragged loss uses."""
     fn = mf.make_preprocessed_l2(channels=("ett",), dt=cfg.dt,
@@ -89,7 +88,7 @@ def _per_shot_reference(cfg, lam, mu, rho, stf, survey, obs_full):
             rxz=jnp.asarray(survey.src_rxz[i], jnp.float32),
             rec_z=jnp.asarray(rz + cfg.npml, jnp.int32),
             rec_x=jnp.asarray(rx + cfg.npml, jnp.int32))
-        syn = st.propagate(cfg, lam, mu, rho, stf[i], geom)
+        syn = propagate(cfg, lam, mu, rho, stf[i], geom)
         total = total + fn(obs_full[i, :, :n], syn,
                            jnp.zeros((n,), jnp.float32),
                            jnp.full((n,), cfg.nt - 1.0, jnp.float32),
@@ -123,34 +122,36 @@ def test_ragged_loss_matches_per_shot_runs():
     assert abs(got - want) / abs(want) < 1e-4
 
 
-def test_ragged_pallas_union_matches_xla():
-    """The Pallas union-spread path: the kernel records the union of all
-    spreads, each shot gathers its own — loss and lam-gradient must match
-    the XLA ragged loss."""
+def _ragged_case():
     cfg, lam, mu, rho, stf = _mini_problem()
     survey = _ragged_survey()
-    geoms = parallel.survey_to_geoms(survey, cfg.npml, dtype=jnp.float32)
-    fwd = jax.jit(lambda l: jax.vmap(
-        lambda s, g: st.propagate(cfg, l, mu, rho, s, g))(stf, geoms))
-    obs = fwd(lam * 1.02)
-
-    tw = jnp.asarray(survey.live_trace_weights(), jnp.float32)
-    ws = jnp.zeros(tw.shape, jnp.float32)
-    we = jnp.full(tw.shape, cfg.nt - 1.0, jnp.float32)
+    geoms = parallel.survey_to_geoms(survey, cfg.npml, dtype=lam.dtype)
+    obs = jax.jit(jax.vmap(lambda s, g: st.propagate(
+        cfg, lam * 1.02, mu, rho, s, g)))(stf, geoms)
+    tw = jnp.asarray(survey.live_trace_weights(), lam.dtype)
+    aux = (jnp.zeros(tw.shape, lam.dtype),
+           jnp.full(tw.shape, cfg.nt - 1.0, lam.dtype), tw)
     fn = mf.make_preprocessed_l2(channels=("ett",), dt=cfg.dt,
                                  per_trace=True)
-    w = jnp.ones((2,), jnp.float32)
+    w = jnp.ones((2,), lam.dtype)
+    return cfg, lam, mu, rho, stf, survey, geoms, obs, aux, fn, w
 
+
+def test_ragged_pallas_union_matches_xla():
+    """The ragged loss (padded spreads, live mask folded into the trace
+    weights): value AND lam-gradient through the boundary-saving adjoint
+    match per-shot runs of the plain-AD reference on each shot's own
+    spread."""
+    cfg, lam, mu, rho, stf, survey, geoms, obs, aux, fn, w = _ragged_case()
     loss_x = parallel.make_local_misfit(cfg, misfit_fn=fn)
-    loss_p = parallel.make_pallas_misfit(cfg, survey, misfit_fn=fn)
-
-    lx = lambda l: loss_x(l, mu, rho, stf, geoms, obs, w, ws, we, tw)
-    lp = lambda l: loss_p(l, mu, rho, stf, obs, w, ws, we, tw)
-    vx, gx = jax.value_and_grad(lx)(lam)
-    vp_, gp = jax.value_and_grad(lp)(lam)
-    assert abs(float(vx) - float(vp_)) / abs(float(vx)) < 3e-4
-    gx, gp = np.asarray(gx), np.asarray(gp)
-    assert np.abs(gp - gx).max() / np.abs(gx).max() < 2e-3
+    vx, gx = jax.value_and_grad(
+        lambda l: loss_x(l, mu, rho, stf, geoms, obs, w, *aux))(lam)
+    va, ga = jax.value_and_grad(lambda l: _per_shot_reference(
+        cfg, l, mu, rho, stf, survey, obs, propagate=propagate_ad))(lam)
+    assert abs(float(vx) - float(va)) / abs(float(va)) < 1e-10
+    sl = cfg.grid.interior_slices()
+    gx, ga = np.asarray(gx)[sl], np.asarray(ga)[sl]
+    assert np.abs(gx - ga).max() / np.abs(ga).max() < 1e-8
 
 
 def test_ragged_shot_io_round_trip(tmp_path):
@@ -173,29 +174,16 @@ def test_ragged_shot_io_round_trip(tmp_path):
 
 
 def test_ragged_pallas_sharded_matches_local():
-    """Ragged union-spread Pallas loss under shard_map (the multi-chip
-    production path) must equal the local ragged Pallas loss."""
-    import jax
-
-    cfg, lam, mu, rho, stf = _mini_problem()
-    survey = _ragged_survey()
-    geoms = parallel.survey_to_geoms(survey, cfg.npml, dtype=jnp.float32)
-    fwd = jax.jit(lambda l: jax.vmap(
-        lambda s, g: __import__("sep2023_tpu").propagate(
-            cfg, l, mu, rho, s, g))(stf, geoms))
-    obs = fwd(lam * 1.02)
-    tw = jnp.asarray(survey.live_trace_weights(), jnp.float32)
-    ws = jnp.zeros(tw.shape, jnp.float32)
-    we = jnp.full(tw.shape, cfg.nt - 1.0, jnp.float32)
-    fn = mf.make_preprocessed_l2(channels=("ett",), dt=cfg.dt,
-                                 per_trace=True)
-    w = jnp.ones((2,), jnp.float32)
-
-    loss_l = parallel.make_pallas_misfit(cfg, survey, misfit_fn=fn)
-    mesh = parallel.shot_mesh(2)
-    loss_s = parallel.make_pallas_sharded_misfit(cfg, survey, mesh,
-                                                 misfit_fn=fn,
-                                                 n_trace_aux=3)
-    vl = float(loss_l(lam, mu, rho, stf, obs, w, ws, we, tw))
-    vs = float(loss_s(lam, mu, rho, stf, obs, w, ws, we, tw))
-    assert abs(vl - vs) / abs(vl) < 1e-5
+    """The ragged loss under shard_map (the multi-device production path)
+    equals the local ragged loss, value and model gradients."""
+    cfg, lam, mu, rho, stf, survey, geoms, obs, aux, fn, w = _ragged_case()
+    loss_l = parallel.make_local_misfit(cfg, misfit_fn=fn)
+    loss_s = parallel.make_sharded_misfit(cfg, parallel.shot_mesh(2),
+                                          misfit_fn=fn, n_trace_aux=3)
+    args = (lam, mu, rho, stf, geoms, obs, w, *aux)
+    vl, gl = jax.value_and_grad(loss_l, argnums=(0, 1, 2))(*args)
+    vs, gs = jax.jit(jax.value_and_grad(loss_s, argnums=(0, 1, 2)))(*args)
+    assert abs(float(vl) - float(vs)) / abs(float(vl)) < 1e-12
+    for a, b in zip(gs, gl):
+        a, b = np.asarray(a), np.asarray(b)
+        assert np.abs(a - b).max() / np.abs(b).max() < 1e-10
